@@ -17,7 +17,7 @@ receiver's TS reconstruction semantics (`bb_de_header.cpp:84-448`):
 Bit-level work is vectorized NumPy on packed arrays; the per-frame pointer
 walk is host Python (kilobytes per frame, not a bottleneck -- SURVEY.md §7).
 The descrambler PRBS is precomputed once and applied as a single XOR, which
-on-device is one fused VPU op over the whole codeword batch.
+on-device is one fused elementwise op over the whole codeword batch.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """DVB-T2 interleaver address generators (frequency / cell / time / bit).
 
 Every interleaver is expressed as a precomputed permutation array so that on
-TPU both directions are single gathers (SURVEY.md par.7 "tables as precomputed
+the device both directions are single gathers (SURVEY.md par.7 "tables as precomputed
 arrays").  Conventions:
 
   * ``perm`` arrays are TX-side writes: ``interleaved[q] = plain[perm[q]]`` or

@@ -5,11 +5,11 @@ Code construction from the standard's parity-bit address tables
 of M=360 accumulate into R parity positions (group row + m*q mod R), followed
 by a parity accumulator chain.
 
-TPU-first design (vs the reference's AVX2 32-lane layered decoder,
+Data-parallel design (vs the reference's AVX2 32-lane layered decoder,
 `/root/reference/src/DVB_T2/LDPC/layered_decoder.hh`): decoding is expressed
 over a dense (R, deg_max, B) message tensor -- gathers from the (N, B) LLR
 array, two-minimum leave-one-out min-sum along the degree axis, scatter-add
-back -- so XLA maps it onto the VPU with thousands of codewords per batch
+back -- so XLA maps it onto wide vector kernels with thousands of codewords per batch
 instead of 32.
 """
 from __future__ import annotations

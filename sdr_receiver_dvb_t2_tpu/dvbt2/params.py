@@ -1,6 +1,6 @@
 """DVB-T2 mode parameter derivation (ETSI EN 302 755).
 
-TPU-native re-design of the reference's mode math
+A re-design of the reference's mode math
 (`/root/reference/src/DVB_T2/dvbt2_definition.{h,cpp}`): instead of a mutable
 struct filled in by three init functions, a frozen dataclass derived once from
 the transmission mode.  Everything downstream (pilot maps, interleaver address

@@ -1,7 +1,7 @@
 """Derived DVB-T2 constant tables: PRBS/PN sequences, pilot carrier maps and
 pilot reference values — all precomputed as NumPy arrays.
 
-TPU-first design stance (SURVEY.md par.7): the reference walks carriers with
+Design stance (SURVEY.md par.7): the reference walks carriers with
 per-sample switch statements at runtime (`pilot_generator.cpp`,
 `p2_symbol.cpp:142-252`); here every map is built once per mode as an index /
 value array so the on-device equalizer is a batched gather + lerp.

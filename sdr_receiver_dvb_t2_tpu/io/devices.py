@@ -6,7 +6,7 @@ The reference couples its device thread to the demodulator through the
 the hardware for coarse retunes, AGC gain steps, resampler corrections and
 resets, and the device applies them between read blocks
 (rx_sdrplay.cpp:158-197, 230-279).  This module reproduces that control
-plane TPU-side:
+plane on the receive host:
 
   - `SignalEstimate`  — the feedback struct,
   - `SDRDevice`       — get/init/start/read_block/apply/stop interface,
@@ -364,6 +364,20 @@ class _RingSource:
         self.ring.close()
 
 
+def derotate_from(x: np.ndarray, start: int, df_hz: float,
+                  fs: float) -> None:
+    """In place: x[j] *= exp(-2j*pi*df*(j - start)/fs) for every j >= start
+    in the buffer.  The ramp is anchored at `start`, which P1 retiming can
+    put a few samples BEFORE the buffer (start < 0); the buffer then turns
+    from its first sample with the ramp's phase there, so it stays
+    continuous with the front end's NCO, which advances by
+    len(x) - start samples of the new frequency."""
+    s0 = max(start, 0)
+    n = np.arange(len(x) - s0) + (s0 - start)
+    x[s0:] = (x[s0:] * np.exp(-2j * np.pi * df_hz * n / fs)
+              ).astype(x.dtype)
+
+
 class StreamingReceiver:
     """Continuously-running closed-loop receive.
 
@@ -552,11 +566,7 @@ class StreamingReceiver:
                 df = out - cfo_prev
                 if abs(df) > 0.5:
                     cfo_prev = out
-                    seg = pending[start:]
-                    n = np.arange(len(seg))
-                    pending[start:] = (seg * np.exp(
-                        -2j * np.pi * df * n / fs)
-                    ).astype(np.complex64)
+                    derotate_from(pending, start, df, fs)
                     chain.add_frequency(df, len(pending) - start)
                 return start
             return None

@@ -1,10 +1,10 @@
 """Network IQ ingest: stream int16 I/Q over TCP with an in-band control
 channel for the retune/AGC feedback loop.
 
-This is the TPU-native answer to the reference's PlutoSDR front end
+This is the network answer to the reference's PlutoSDR front end
 (`/root/reference/src/rx_plutosdr.cpp`, `libplutosdr/plutosdr_hi_speed_rx.c`):
 there the radio hangs off the receiver host's USB bus and a custom kernel
-module streams int16 blocks; a TPU host has no USB radio, so the radio-side
+module streams int16 blocks; an accelerator host has no USB radio, so the radio-side
 daemon (`IQStreamServer`, wrapping any `SDRDevice` — on a real deployment the
 Pluto/airspy vendor read loop) ships the same int16 blocks over the network
 and the receive host runs `NetworkDevice`.  Hardware feedback
@@ -347,11 +347,11 @@ def main(argv=None) -> int:
     point the receive host at it:
 
         radio$  t2radio --device sdrplay --frequency 634e6 --gain 40
-        tpu$    t2rx tcp://radio:47392 --stream --device-path --out out.ts
+        rxhost$ t2rx tcp://radio:47392 --stream --device-path --out out.ts
 
     This is the deployment topology replacing the reference's USB-attached
     PlutoSDR (rx_plutosdr.cpp): the vendor read loop runs here, the DSP
-    runs on the TPU host, and the streaming receiver's AGC/retune feedback
+    runs on the receive host, and the streaming receiver's AGC/retune feedback
     crosses the socket upstream."""
     import argparse
 

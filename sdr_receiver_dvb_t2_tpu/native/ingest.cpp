@@ -2,7 +2,7 @@
 //
 // The reference's native surface is its device layer: int16 IQ streaming with
 // elastic double-buffering and SIMD sample conversion (rx_sdrplay.cpp:199-291,
-// libairspy iqconverter_*.c).  TPU hosts have no USB SDRs, but the framework
+// libairspy iqconverter_*.c).  Accelerator hosts often have no USB SDRs, but the framework
 // keeps the native layer for the same jobs it does in the reference:
 //   - bulk int16 -> float32 de-interleave + scale (AVX2 when available)
 //   - a lock-free single-producer/single-consumer ring buffer for streaming

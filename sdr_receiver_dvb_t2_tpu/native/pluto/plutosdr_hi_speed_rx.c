@@ -1,4 +1,4 @@
-/* PlutoSDR hi-speed bulk-streaming host driver (TPU-framework native).
+/* PlutoSDR hi-speed bulk-streaming host driver (the framework's native layer).
  *
  * Re-provides the component the reference ships as
  * src/libplutosdr/plutosdr_hi_speed_rx.c (719 lines, osmoplutosdr-

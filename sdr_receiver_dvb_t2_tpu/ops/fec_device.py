@@ -1,6 +1,6 @@
-"""Device-side FEC tail: batched BCH parity check (MXU matmul over GF(2))
+"""Device-side FEC tail: batched BCH parity check (a matmul over GF(2))
 and BB descramble + byte packing, so decoded codewords become checkable
-BB-frame bytes WITHOUT leaving the TPU.
+BB-frame bytes WITHOUT leaving the device.
 
 The reference runs BCH (a stub — descramble only, bch_decoder.cpp:136-142)
 and BB de-headering on dedicated CPU threads.  Here the per-codeword
@@ -12,8 +12,9 @@ frame, not a bottleneck (SURVEY.md §7 "variable-rate TS reassembly").
 GF(2) check: codeword c(x) is a BCH codeword iff g(x) | c(x), i.e. the
 remainder of c(x) mod g(x) is zero.  remainder(x^d mod g) is a linear map,
 so rem(c) = XOR over set bits of a precomputed (n_bch, parity) matrix —
-on the MXU that is one f32-accumulated matmul followed by mod 2 (sums are
-< 2^24, exact in f32).
+that is one bf16 matmul with f32 accumulation followed by mod 2: the
+operands are 0/1 and the sums stay below 2^24, so it is exact on any
+device.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def remainder_matrix(frame: FECFrame, n_bch: int, t: int) -> np.ndarray:
 def make_bch_check_nb(frame: FECFrame, rate: CodeRate):
     """Jitted fn(bits (n_bch, B) uint8) -> ok (B,) bool.
 
-    One bf16 MXU matmul + mod-2: the batched equivalent of the per-codeword
+    One bf16 matmul (f32 accumulation) + mod-2: the batched equivalent of the per-codeword
     `bch.syndromes` gate (all-zero remainder <=> all 2t syndromes zero)."""
     import jax
     import jax.numpy as jnp

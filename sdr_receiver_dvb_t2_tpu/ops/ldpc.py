@@ -1,12 +1,12 @@
-"""Batched LDPC min-sum decoder in JAX (XLA/TPU device path).
+"""Batched LDPC min-sum decoder in JAX (XLA device path).
 
-TPU-first redesign of the reference's 32-lane AVX2 layered decoder
+A data-parallel redesign of the reference's 32-lane AVX2 layered decoder
 (`LDPC/layered_decoder.hh`, `LDPC/avx2.hh`): a *flooding*-schedule offset
 min-sum over a dense (R, deg_max) check-node adjacency, vectorized over an
 arbitrary codeword batch.  Flooding removes the layer-serialization (the
 reference compiles it as the alternative schedule, `ldpc_decoder.h:53-63`)
 so every iteration is a handful of large gathers/reductions/scatter-adds
-that XLA fuses onto the VPU, with thousands of codewords in flight instead
+that XLA fuses into wide elementwise kernels, with thousands of codewords in flight instead
 of 32.
 
 Messages are kept in the requested dtype (float32 default; bfloat16 halves
@@ -36,8 +36,8 @@ def _decoder_cached(code_key, iters: int, offset: float, dtype_name: str):
 def _vn_adjacency(code_key) -> np.ndarray:
     """Variable-node edge lists: (N+1, vdeg_max) indices into the flat
     (R*dmax) edge space, padded with R*dmax (a zero slot).  Converts the
-    per-iteration scatter-add into a gather + sum — scatters are slow on
-    TPU, gathers are fast."""
+    per-iteration scatter-add into a gather + sum (gathers vectorise
+    without write conflicts)."""
     frame, rate = code_key
     code = get_code(frame, rate)
     r, dmax = code.cn_idx.shape

@@ -1,7 +1,7 @@
 """OFDM demodulation: sample stream -> equalized, frequency-deinterleaved
 frame cell stream.
 
-TPU-first structure (SURVEY.md §2.6/§7): all symbols of a frame are processed
+Batched structure (SURVEY.md §2.6/§7): all symbols of a frame are processed
 as one batch — one batched FFT over (len_frame, fft_size), channel estimation
 as gathers over precomputed pilot index tables + linear interpolation,
 frequency deinterleaving as a single gather — replacing the reference's

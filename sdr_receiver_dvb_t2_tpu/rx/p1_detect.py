@@ -1,6 +1,6 @@
 """P1 preamble detection and decoding (acquisition phase, host NumPy).
 
-TPU-first redesign of the reference's streaming correlator
+A batched redesign of the reference's streaming correlator
 (`p1_symbol.cpp:92-172`): instead of a sample-serial delay-line state machine,
 the whole search window is correlated at once with vectorized delay products
 and cumulative-sum boxcar averages — same math, O(N) NumPy, no state.

@@ -6,7 +6,7 @@ Chain per FEC frame (EN 302 755 clause 6):
   rotation + cyclic Q-delay (if enabled)
 
 Everything is vectorized over the batch of FEC frames with precomputed
-permutations from `dvbt2.interleavers` (the TPU-first "tables as arrays"
+permutations from `dvbt2.interleavers` (the "tables as arrays"
 stance -- the inverse of the reference's per-bit loops in llr_demapper.cpp /
 ldpc_decoder.cpp).  This TX side is the framework's test-signal source and
 runs in NumPy on host.

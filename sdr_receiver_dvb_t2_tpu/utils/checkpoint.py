@@ -1,7 +1,7 @@
 """Block-level receiver state checkpoint/resume (SURVEY.md §5: the reference
 has none; for a streaming receiver over long captures the resumable state is
 small and explicit -- sample offset, acquisition results, BB/TS reassembly
-state -- because the TPU design already carries all sync state explicitly
+state -- because the design already carries all sync state explicitly
 instead of hiding it in thread-local loop filters)."""
 from __future__ import annotations
 

@@ -82,3 +82,18 @@ def device_trace(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def gpu_identity() -> str:
+    """The card's name and power limit as `nvidia-smi` reports them
+    ("NVIDIA H100 80GB HBM3, 700.00 W"), to print beside every device
+    number: a card set below its maximum power runs slower under load."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not available ({e.__class__.__name__})"
+    return out.stdout.strip()

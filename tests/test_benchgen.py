@@ -125,8 +125,7 @@ def test_gate_hashes_catch_frame_and_slot_permutations():
     mf = fusedpath.MultiFramePath(p, plp, NB, F)
     llrs = np.asarray(mf._fn(jnp.asarray(bodies)[:, 2048:],
                              jnp.float32(1e3)))
-    dec = qldpc.make_decoder_nb(plp.fec_frame, plp.rate, iters=8, batch=NB,
-                                interpret=True)
+    dec = qldpc.make_xla_decoder(plp.fec_frame, plp.rate, max_iters=8)
     bch_check = fec_device.make_bch_check_nb(plp.fec_frame, plp.rate)
     bb_pack = fec_device.make_bb_bytes_nb(plp.fec_frame, plp.rate)
     wrng = np.random.default_rng(0xDB72)
@@ -135,8 +134,7 @@ def test_gate_hashes_catch_frame_and_slot_permutations():
     d_wb = jnp.asarray(wb)
     got = []
     for f in range(F):
-        bits, it = None, None
-        bits = dec(jnp.asarray(llrs[:, :, f]))
+        bits, _ = dec(jnp.asarray(llrs[:, :, f]))
         assert bool(np.asarray(bch_check(bits[:fec.n_bch])).all()), f
         byts = bb_pack(bits)
         got.append(np.asarray(
@@ -228,8 +226,7 @@ def test_acquisition_estimates_bench_tracking_state():
     mf = fusedpath.MultiFramePath(p, plp, NB, F)
     llrs = np.asarray(mf._fn(jnp.asarray(bodies)[:, 2048:],
                              jnp.float32(1e3)))
-    dec = qldpc.make_decoder_nb(plp.fec_frame, plp.rate, iters=8, batch=NB,
-                                interpret=True)
+    dec = qldpc.make_xla_decoder(plp.fec_frame, plp.rate, max_iters=8)
     bch_check = fec_device.make_bch_check_nb(plp.fec_frame, plp.rate)
-    bits = dec(jnp.asarray(llrs[:, :, 0]))
+    bits, _ = dec(jnp.asarray(llrs[:, :, 0]))
     assert bool(np.asarray(bch_check(bits[:fec.n_bch])).all())

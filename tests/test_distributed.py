@@ -1,6 +1,6 @@
 """Multi-process (multi-host analogue) mechanism test: two OS processes
 join one jax.distributed cluster on the CPU backend, build a global mesh
-over both processes' devices, and run a psum — the mechanism a 2-host TPU
+over both processes' devices, and run a psum — the mechanism a 2-host
 deployment uses (BASELINE.md scaling row), validated without a pod.
 
 Skips gracefully when the installed jax/XLA CPU build lacks cross-process

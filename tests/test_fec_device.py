@@ -1,4 +1,4 @@
-"""Device-side FEC tail: batched BCH parity gate (MXU matmul over GF(2))
+"""Device-side FEC tail: batched BCH parity gate (a matmul over GF(2))
 and BB descramble/byte-pack, vs the scalar host implementations."""
 import numpy as np
 import jax.numpy as jnp

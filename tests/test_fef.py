@@ -119,7 +119,7 @@ def test_fef_acquisition_skips_fef_p1():
 
 
 def test_fef_device_path_supersteps():
-    """The fused TPU streaming path (DeviceT2Receiver, F-frame
+    """The fused device streaming path (DeviceT2Receiver, F-frame
     supersteps) across FEF parts: batch starts are non-contiguous (the
     gap between consecutive frames includes FEF_LENGTH) and every frame
     still decodes bit-exact with the batched path engaged."""

@@ -1,8 +1,13 @@
-"""QC layered LDPC decoder tests: layout transforms, XLA reference version,
-and the Pallas kernel in interpreter mode (hardware path measured by bench)."""
+"""QC layered LDPC decoder tests: layout transforms, the XLA schedule and
+its early-exit loop, the Triton kernel in interpret mode against that loop,
+and the backend's choice of decoder.  The kernel compiled for the card is
+checked by chip_smoke.py and by the gpu-marked test below."""
+import functools
+
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from sdr_receiver_dvb_t2_tpu.dvbt2 import ldpc as ldpcmod
@@ -52,66 +57,6 @@ def test_xla_layered_decodes():
     np.testing.assert_array_equal(hard, cw)
 
 
-def test_pallas_kernel_interpret_matches():
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8)
-    tab = qc.qc_tables(frame, rate)
-    ti, tp = qc.llrs_to_qc(tab, llr)
-    dec = qc.make_pallas_layered(frame, rate, iters=8, batch=8,
-                                 interpret=True)
-    ti2, tp2 = dec(jnp.asarray(ti), jnp.asarray(tp))
-    hard = qc.qc_to_bits(tab, np.asarray(ti2), np.asarray(tp2))
-    assert jldpc.syndrome_ok(code, hard).all()
-    np.testing.assert_array_equal(hard, cw)
-
-
-@pytest.mark.parametrize("frame,rate", [(FECFrame.SHORT, CodeRate.C1_2),
-                                        (FECFrame.SHORT, CodeRate.C3_4)])
-def test_pallas_vmem_kernel_interpret_matches(frame, rate):
-    code, cw, llr = _noisy(frame, rate, 8)
-    tab = qc.qc_tables(frame, rate)
-    ti, tp = qc.llrs_to_qc(tab, llr)
-    dec = qc.make_pallas_layered_vmem(frame, rate, iters=8, batch=8,
-                                      interpret=True)
-    ti2, tp2 = dec(jnp.asarray(ti), jnp.asarray(tp))
-    hard = qc.qc_to_bits(tab, np.asarray(ti2), np.asarray(tp2))
-    assert jldpc.syndrome_ok(code, hard).all()
-    np.testing.assert_array_equal(hard, cw)
-
-
-def test_pallas_vmem_matches_xla_reference_exactly():
-    """The VMEM-resident kernel implements the exact layered schedule of
-    `build_layered_decoder`: at float32 message storage the totals agree
-    bit-for-bit after several iterations.  (The HBM-streamed kernel cannot
-    be checked this way in interpret mode: it persists c2v messages across
-    iterations via input_output_aliases, which interpret mode does not
-    honor -- on hardware the buffers are donated and shared.)"""
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=1.4)
-    tab = qc.qc_tables(frame, rate)
-    ti, tp = qc.llrs_to_qc(tab, llr)
-    dx = qc.build_layered_decoder(frame, rate, iters=5)
-    d2 = qc.make_pallas_layered_vmem(frame, rate, iters=5, batch=8,
-                                     interpret=True, dtype=jnp.float32)
-    ti1, tp1 = dx(jnp.asarray(ti), jnp.asarray(tp))
-    ti2, tp2 = d2(jnp.asarray(ti), jnp.asarray(tp))
-    np.testing.assert_array_equal(np.asarray(ti1), np.asarray(ti2))
-    np.testing.assert_array_equal(np.asarray(tp1), np.asarray(tp2))
-
-
-def test_pallas_kernel_flags_garbage():
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code = ldpcmod.get_code(frame, rate)
-    tab = qc.qc_tables(frame, rate)
-    llr = RNG.normal(0, 1.0, (8, code.n)).astype(np.float32)
-    ti, tp = qc.llrs_to_qc(tab, llr)
-    dec = qc.make_pallas_layered(frame, rate, iters=4, batch=8,
-                                 interpret=True)
-    ti2, tp2 = dec(jnp.asarray(ti), jnp.asarray(tp))
-    hard = qc.qc_to_bits(tab, np.asarray(ti2), np.asarray(tp2))
-    assert not jldpc.syndrome_ok(code, hard).any()
-
-
 def test_qc_syndrome_ok_xla():
     frame, rate = FECFrame.SHORT, CodeRate.C1_2
     code, cw, llr = _noisy(frame, rate, 6, snr_scale=20.0)  # clean
@@ -130,169 +75,145 @@ def test_qc_syndrome_ok_xla():
     assert not ok2[0] and ok2[1:].all()
 
 
-def test_adaptive_decoder_early_exit():
+
+
+@functools.lru_cache(maxsize=None)
+def xla_decoder(frame, rate, max_iters, c2v_dtype=None, layer_order=None):
+    """One jitted decoder per configuration for the whole module: the
+    unrolled sweep takes seconds to compile on the CPU."""
+    return qc.make_xla_decoder(frame, rate, max_iters=max_iters,
+                               c2v_dtype=c2v_dtype, layer_order=layer_order)
+
+
+@functools.lru_cache(maxsize=None)
+def triton_decoder(frame, rate, max_iters, c2v_dtype=None):
+    return qc.make_triton_decoder(frame, rate, max_iters=max_iters,
+                                  c2v_dtype=c2v_dtype, interpret=True)
+
+
+@pytest.mark.parametrize("c2v_dtype", [None, jnp.bfloat16])
+@pytest.mark.parametrize("layer_order", [None, "reversed"])
+def test_xla_decoder_matches_fixed_sweeps(c2v_dtype, layer_order):
+    """On input that never checks clean the early-exit loop runs
+    max_iters sweeps of the stepper's schedule, in either layer order and
+    at either message precision (and, natural order at float32, of the
+    fixed-sweep decoder's)."""
     frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=4.0)
-    dec = qc.make_adaptive_decoder_nb(frame, rate, max_iters=12, chunk=2,
-                                      batch=8, interpret=True,
-                                      dtype=jnp.float32)
-    bits, it = dec(jnp.asarray(llr.T))
-    bits = np.asarray(bits)
-    np.testing.assert_array_equal(bits.T, cw)
-    assert int(it) < 12  # clean batch exits early
-    # garbage input: runs to max_iters
-    rng = np.random.default_rng(9)
-    garbage = rng.normal(0, 1, llr.T.shape).astype(np.float32)
-    _, it2 = dec(jnp.asarray(garbage))
-    assert int(it2) == 12
-
-
-def test_adaptive_inkernel_decoder():
-    """Single-call adaptive kernel: early exit, iteration count, and
-    bit-exact agreement with the fixed-iteration VMEM kernel schedule."""
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=4.0)
-    dec = qc.make_adaptive_decoder_nb_fused(
-        frame, rate, max_iters=12, check_every=2, batch=8,
-        interpret=True, dtype=jnp.float32)
-    bits, it = dec(jnp.asarray(llr.T))
-    np.testing.assert_array_equal(np.asarray(bits).T, cw)
-    it = int(it)
-    assert it < 12 and it % 2 == 0  # clean batch exits early
-    # the early-exit schedule is a prefix of the fixed-iteration schedule:
-    # a fixed decode of exactly `it` iterations gives the same bits
-    ref = qc.make_decoder_nb(frame, rate, iters=it, batch=8,
-                             interpret=True, variant="vmem",
-                             dtype=jnp.float32)
-    np.testing.assert_array_equal(np.asarray(bits),
-                                  np.asarray(ref(jnp.asarray(llr.T))))
-    # garbage input runs to max_iters
-    rng = np.random.default_rng(9)
-    garbage = rng.normal(0, 1, llr.T.shape).astype(np.float32)
-    _, it2 = dec(jnp.asarray(garbage))
-    assert int(it2) == 12
-
-
-def test_adaptive_inkernel_min_iters():
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=6.0)
-    dec = qc.make_adaptive_decoder_nb_fused(
-        frame, rate, max_iters=12, check_every=2, batch=8,
-        interpret=True, dtype=jnp.float32, min_iters=6)
-    bits, it = dec(jnp.asarray(llr.T))
-    np.testing.assert_array_equal(np.asarray(bits).T, cw)
-    assert int(it) >= 6
-
-
-def test_pallas_vmem_bf16_scan_decodes():
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=3.0)
     tab = qc.qc_tables(frame, rate)
-    ti, tp = qc.llrs_to_qc(tab, llr)
-    dec = qc.make_pallas_layered_vmem(frame, rate, iters=8, batch=8,
-                                      interpret=True,
-                                      scan_dtype=jnp.bfloat16)
-    ti2, tp2 = dec(jnp.asarray(ti), jnp.asarray(tp))
-    hard = qc.qc_to_bits(tab, np.asarray(ti2), np.asarray(tp2))
-    assert jldpc.syndrome_ok(code, hard).all()
-    np.testing.assert_array_equal(hard, cw)
-
-
-def test_fused_io_decoder_matches():
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=3.0)
-    dec = qc.make_decoder_nb_fused_io(frame, rate, iters=8, batch=8,
-                                      interpret=True, dtype=jnp.float32)
-    bits = np.asarray(dec(jnp.asarray(llr.T)))
-    np.testing.assert_array_equal(bits.T, cw)
-    ref = qc.make_decoder_nb(frame, rate, iters=8, batch=8, interpret=True,
-                             variant="vmem", dtype=jnp.float32)
-    bits2 = np.asarray(ref(jnp.asarray(llr.T)))
-    np.testing.assert_array_equal(bits, bits2)
-
-
-def test_adaptive_inkernel_rolling_check():
-    """Rolling in-sweep syndrome variant: the check accumulates inside
-    every layer pass (reusing its rolls), exits at the exact convergence
-    sweep, and the decode schedule stays a prefix of the fixed-iteration
-    schedule."""
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=4.0)
-    dec = qc.make_adaptive_decoder_nb_fused(
-        frame, rate, max_iters=12, batch=8,
-        interpret=True, dtype=jnp.float32, rolling=True)
-    bits, it = dec(jnp.asarray(llr.T))
-    np.testing.assert_array_equal(np.asarray(bits).T, cw)
-    it = int(it)
-    assert 0 < it < 12       # exits at the exact sweep (no even rounding)
-    ref = qc.make_decoder_nb(frame, rate, iters=it, batch=8,
-                             interpret=True, variant="vmem",
-                             dtype=jnp.float32)
-    np.testing.assert_array_equal(np.asarray(bits),
-                                  np.asarray(ref(jnp.asarray(llr.T))))
-    # the non-rolling variant (checks every 2) can only exit at an even
-    # count >= the rolling exit
-    dec2 = qc.make_adaptive_decoder_nb_fused(
-        frame, rate, max_iters=12, check_every=2, batch=8,
-        interpret=True, dtype=jnp.float32)
-    _, it2 = dec2(jnp.asarray(llr.T))
-    assert int(it2) >= it and int(it2) % 2 == 0
-    # garbage input runs to max_iters
-    rng = np.random.default_rng(9)
-    garbage = rng.normal(0, 1, llr.T.shape).astype(np.float32)
-    _, itg = dec(jnp.asarray(garbage))
-    assert int(itg) == 12
-    # min_iters still gates the exit
-    dec3 = qc.make_adaptive_decoder_nb_fused(
-        frame, rate, max_iters=12, batch=8, interpret=True,
-        dtype=jnp.float32, rolling=True, min_iters=7)
-    _, it3 = dec3(jnp.asarray(llr.T))
-    assert int(it3) >= 7
-
-
-def test_adaptive_inkernel_fused_io():
-    """Fused-IO adaptive kernel: bf16 LLR planes staged through the c2v
-    scratch on entry, hard-decision sign planes DMA'd out — bits and
-    iteration count identical to the plain adaptive kernel."""
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=4.0)
-    ref = qc.make_adaptive_decoder_nb_fused(
-        frame, rate, max_iters=12, check_every=2, batch=8,
-        interpret=True, dtype=jnp.float32)
-    dec = qc.make_adaptive_decoder_nb_fused_io(
-        frame, rate, max_iters=12, check_every=2, batch=8,
-        interpret=True, dtype=jnp.float32)
-    b_ref, it_ref = ref(jnp.asarray(llr.T))
-    b_io, it_io = dec(jnp.asarray(llr.T))
-    np.testing.assert_array_equal(np.asarray(b_io), np.asarray(b_ref))
-    assert int(it_io) == int(it_ref)
-    np.testing.assert_array_equal(np.asarray(b_io).T, cw)
-    # the traced first-check floor applies identically
-    _, it_f = dec(jnp.asarray(llr.T), 6)
-    assert int(it_f) >= 6
-
-
-def test_layer_order_reversed_kernel_matches_xla():
-    """A permuted layer schedule (layer_order="reversed" — measured ~0.4
-    sweeps faster than natural at threshold, twophase_study --schedules)
-    is still the exact layered algorithm: the interpret-mode kernel with
-    reversed order matches the XLA stepper run in the same order sweep
-    for sweep, and decodes to the true codeword."""
-    frame, rate = FECFrame.SHORT, CodeRate.C1_2
-    code, cw, llr = _noisy(frame, rate, 8, snr_scale=4.0)
-    tab = qc.qc_tables(frame, rate)
-    dec = qc.make_adaptive_decoder_nb_fused_io(
-        frame, rate, max_iters=12, check_every=2, batch=8,
-        interpret=True, dtype=jnp.float32, layer_order="reversed")
-    bits, it = dec(jnp.asarray(llr.T))
-    np.testing.assert_array_equal(np.asarray(bits).T, cw)
-
-    # sweep-exact check vs the XLA stepper in the same order: run the
-    # stepper `it` sweeps and compare hard decisions
-    step = qc.build_layered_stepper(frame, rate, layer_order="reversed")
-    ti, tp = qc.llrs_nb_to_qc_jnp(tab, jnp.asarray(llr.T, jnp.float32))
-    c2v = jnp.zeros((tab.q, tab.degmax + 2, 360, 8), jnp.float32)
-    for _ in range(int(it)):
+    llr = np.random.default_rng(11).normal(0, 1, (tab.n, 3)).astype(
+        np.float32)
+    bits, sweeps = xla_decoder(frame, rate, 3, c2v_dtype, layer_order)(
+        jnp.asarray(llr))
+    assert int(sweeps) == 3
+    step = qc.build_layered_stepper(frame, rate, c2v_dtype=c2v_dtype,
+                                    layer_order=layer_order)
+    ti, tp = qc.llrs_nb_to_qc_jnp(tab, jnp.asarray(llr))
+    c2v = jnp.zeros((tab.q, tab.degmax + 2, 360, 3),
+                    c2v_dtype or jnp.float32)
+    for _ in range(3):
         ti, tp, c2v = step(ti, tp, c2v)
-    bits_ref = qc.qc_to_bits_nb_jnp(tab, ti, tp)
-    np.testing.assert_array_equal(np.asarray(bits), np.asarray(bits_ref))
+    np.testing.assert_array_equal(np.asarray(bits),
+                                  np.asarray(qc.qc_to_bits_nb_jnp(tab, ti,
+                                                                  tp)))
+    if c2v_dtype is None and layer_order is None:
+        ti2, tp2 = qc.build_layered_decoder(frame, rate, iters=3)(
+            *qc.llrs_nb_to_qc_jnp(tab, jnp.asarray(llr)))
+        np.testing.assert_array_equal(
+            np.asarray(bits), np.asarray(qc.qc_to_bits_nb_jnp(tab, ti2, tp2)))
+
+
+def _decoder(impl, frame, rate, max_iters):
+    build = xla_decoder if impl == "xla" else triton_decoder
+    return build(frame, rate, max_iters)
+
+
+@pytest.mark.parametrize("impl", ["xla", "triton"])
+def test_early_exit_on_clean_input(impl):
+    frame, rate = FECFrame.SHORT, CodeRate.C1_2
+    code, cw, llr = _noisy(frame, rate, 3, snr_scale=8.0)
+    bits, sweeps = _decoder(impl, frame, rate, 5)(jnp.asarray(llr.T))
+    assert int(sweeps) == 1
+    np.testing.assert_array_equal(np.asarray(bits).T, cw)
+
+
+@pytest.mark.parametrize("impl", ["xla", "triton"])
+def test_min_it_floor_delays_exit(impl):
+    frame, rate = FECFrame.SHORT, CodeRate.C1_2
+    code, cw, llr = _noisy(frame, rate, 3, snr_scale=8.0)
+    bits, sweeps = _decoder(impl, frame, rate, 5)(jnp.asarray(llr.T), 4)
+    assert int(sweeps) == 4
+    np.testing.assert_array_equal(np.asarray(bits).T, cw)
+
+
+@pytest.mark.parametrize("impl", ["xla", "triton"])
+def test_garbage_runs_to_max_sweeps(impl):
+    frame, rate = FECFrame.SHORT, CodeRate.C1_2
+    code = ldpcmod.get_code(frame, rate)
+    llr = np.random.default_rng(9).normal(0, 1, (code.n, 3)).astype(
+        np.float32)
+    bits, sweeps = _decoder(impl, frame, rate, 5)(jnp.asarray(llr))
+    assert int(sweeps) == 5
+    assert not jldpc.syndrome_ok(code, np.asarray(bits).T).any()
+
+
+@pytest.mark.parametrize("batch", [1, 3, 128])
+def test_any_batch_size_freezes_each_codeword(batch):
+    """Each codeword is frozen from its own first clean sweep, so its bits
+    do not depend on the batch it rides in: a mixed batch (a noisy
+    codeword among clean ones) decodes each codeword as it decodes alone."""
+    frame, rate = FECFrame.SHORT, CodeRate.C1_2
+    code, cw, llr = _noisy(frame, rate, batch, snr_scale=8.0)
+    _, cw1, llr1 = _noisy(frame, rate, 1, snr_scale=1.6)
+    llr[0], cw[0] = llr1[0], cw1[0]
+    dec = xla_decoder(frame, rate, 12)
+    bits, sweeps = dec(jnp.asarray(llr.T))
+    bits = np.asarray(bits)
+    assert bits.shape == (code.n, batch) and bits.dtype == np.uint8
+    alone, sweeps0 = dec(jnp.asarray(llr[:1].T))
+    np.testing.assert_array_equal(bits[:, :1], np.asarray(alone))
+    assert int(sweeps) == int(sweeps0)
+    np.testing.assert_array_equal(bits.T, cw)
+
+
+@pytest.mark.parametrize("backend,expect", [("cpu", "make_xla_decoder"),
+                                            ("gpu", "make_triton_decoder"),
+                                            ("rocm", None)])
+def test_make_decoder_follows_backend(monkeypatch, backend, expect):
+    calls = []
+    for name in ("make_xla_decoder", "make_triton_decoder"):
+        monkeypatch.setattr(qc, name, functools.partial(
+            lambda n, *a, **k: calls.append(n) or n, name))
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if expect is None:
+        with pytest.raises(RuntimeError, match="rocm"):
+            qc.make_decoder(FECFrame.SHORT, CodeRate.C1_2)
+        assert calls == []
+    else:
+        assert qc.make_decoder(FECFrame.SHORT, CodeRate.C1_2) == expect
+        assert calls == [expect]
+
+
+@pytest.fixture
+def gpu_device():
+    """The first GPU, or a skip: decided here, never at import."""
+    devs = [d for d in jax.devices() if d.platform == "gpu"]
+    if not devs:
+        pytest.skip("needs a GPU (run on the card: pytest -m gpu)")
+    return devs[0]
+
+
+@pytest.mark.gpu
+def test_triton_decoder_on_gpu_matches_xla(gpu_device):
+    """The compiled kernel at the bench's code and batch against the XLA
+    loop: identical bits and sweeps at float32 messages."""
+    frame, rate = FECFrame.NORMAL, CodeRate.C2_3
+    code = ldpcmod.get_code(frame, rate)
+    rng = np.random.default_rng(5)
+    cw = ldpcmod.encode(code, rng.integers(0, 2, (128, code.k)).astype(
+        np.uint8))
+    y = (1 - 2.0 * cw) + rng.normal(0, 0.68, cw.shape)
+    x = jnp.asarray((2.0 * y / 0.68 ** 2).T, jnp.float32)
+    ba, ia = qc.make_xla_decoder(frame, rate, c2v_dtype=None)(x)
+    bb, ib = qc.make_triton_decoder(frame, rate, c2v_dtype=None)(x)
+    np.testing.assert_array_equal(np.asarray(ba), np.asarray(bb))
+    assert int(ia) == int(ib)

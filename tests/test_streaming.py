@@ -608,3 +608,38 @@ def test_stream_device_frontend_falls_back_for_odd_ratio():
     assert st.frontend == "CorrectorChain"
     assert st.frames_decoded >= 5
     np.testing.assert_array_equal(ts, flat[:len(ts)])
+
+
+@pytest.mark.parametrize("start", [-19, 0, 40])
+def test_derotate_from_keeps_the_ramp_anchored_at_start(start):
+    """The CFO correction of a tracked frame turns the buffer from the
+    frame start on, with phase 0 at that start, also when P1 retiming put
+    the start before the buffer: every sample at or after the start ends
+    on the ramp, and samples before it are untouched."""
+    x = np.ones(200, np.complex64)
+    devices.derotate_from(x, start, 1234.5, devices.SAMPLE_RATE)
+    j = np.arange(200)
+    ramp = np.exp(-2j * np.pi * 1234.5 * (j - start) / devices.SAMPLE_RATE)
+    on = j >= start
+    np.testing.assert_allclose(x[on], ramp[on], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(x[~on], 1.0)
+
+
+def test_device_chain_reads_where_its_host_bookkeeping_says():
+    """A 3M-sample block at the SdrPlay rate (+0.625%): the device
+    resampler must read at the positions the host advances in float64.
+    A pure tone through the chain stays on the ideal tone's phase; with
+    the ratio rounded to float32 the read position drifted ~0.07 samples
+    over the block (0.09 rad at this tone)."""
+    from sdr_receiver_dvb_t2_tpu.ops.frontend_device import (
+        DeviceFrontendChain)
+    fs_in, fs_out, f0 = 9.2e6, devices.SAMPLE_RATE, 1.9e6
+    n = 3_000_000
+    x = np.exp(2j * np.pi * f0 * np.arange(n) / fs_in).astype(np.complex64)
+    chain = DeviceFrontendChain(in_rate=fs_in, out_rate=fs_out, block_len=n)
+    y = chain.process(x)
+    k = np.arange(len(y) - 20000, len(y))
+    pos = chain.half + k * (fs_in / fs_out)        # input read positions
+    ideal = np.exp(2j * np.pi * f0 * pos / fs_in)
+    err = np.abs(np.angle(y[k] / ideal))
+    assert len(y) > 2_900_000 and err.max() < 0.02, err.max()

@@ -21,8 +21,8 @@ import numpy as np
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from sdr_receiver_dvb_t2_tpu.utils.jaxcache import enable_compile_cache
+    enable_compile_cache()
 
     from sdr_receiver_dvb_t2_tpu.dvbt2.params import (
         CodeRate, Constellation, FECFrame, FFTMode, GuardInterval,

@@ -14,8 +14,8 @@ Interpretation note (written into the artifact): this host has ONLY
 pools, so the walltime ratio is bounded by host oversubscription, not by
 the program's communication structure.  The program's cross-process
 traffic is a 2-float psum per step (asserted scalar-only by
-tests/test_sharding.py's HLO check); on 2 real TPU hosts the same
-program's efficiency is bounded by ingest, not ICI/DCN.
+tests/test_sharding.py's HLO check); on 2 real accelerator hosts the same
+program's efficiency is bounded by ingest, not the interconnect.
 
     python tools/distributed_bench.py [--frames 2] [--reps 5]
 """
@@ -114,8 +114,8 @@ def main() -> int:
             "at every cluster size. The step's only cross-process "
             "traffic is a 2-float stats psum (tests/test_sharding.py "
             "asserts the compiled HLO's collectives are <=256 B); frames "
-            "are fully data-parallel, so on >=2 real TPU hosts the "
-            "efficiency bound is ingest bandwidth, not ICI/DCN."),
+            "are fully data-parallel, so on >=2 real accelerator hosts the "
+            "efficiency bound is ingest bandwidth, not the interconnect."),
     }
     with open(args.out, "w") as f:
         json.dump(art, f, indent=1)
